@@ -18,8 +18,9 @@ import numpy as np
 def build_parser():
     p = argparse.ArgumentParser(
         prog="sdvpcmdecoder_tpu",
-        description="TPU-native decoder for PCM adapter audio on video "
-                    "captures (STC-007/PCM-F1/M2, PCM-1, PCM-16x0)")
+        description="Decoder for PCM adapter audio on video captures "
+                    "(STC-007/PCM-F1/M2, PCM-1, PCM-16x0), with the "
+                    "trial-grid decode on an accelerator or the host")
     p.add_argument("input", help="input capture (.y4m or raw gray8)")
     p.add_argument("-o", "--output", default=None, help="output WAV path")
     p.add_argument("--format", default="stc007",
@@ -72,11 +73,13 @@ def build_parser():
                         "analog, pcmline.h DUMP_* legend)")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "native", "tpu", "device"],
-                   help="binarizer backend: the in-place native trial "
-                        "grid, the TPU batch grid (pixels streamed per "
-                        "round), transport-aware auto (default), or "
-                        "'device' — the chip-resident drivers (pixels "
-                        "staged in HBM chunks, one fused dispatch per "
+                   help="binarizer backend: 'native', the in-place host "
+                        "trial grid; 'tpu', the streaming accelerator "
+                        "grid (pixels sent to the device every batch); "
+                        "'auto' (default), native when its C++ core "
+                        "builds, else the accelerator grid; or 'device', "
+                        "the chip-resident drivers (pixels staged in "
+                        "device-memory chunks, one fused dispatch per "
                         "round; pipeline/device_driver, device_pcm)")
     p.add_argument("--per-line-agc", action="store_true",
                    help="per-LINE black/white/reference via the "
@@ -88,10 +91,6 @@ def build_parser():
                    help="also stream decoded audio live (SamplesToAudio "
                         "analog): 'alsa[:device]', '-' for raw s16le on "
                         "stdout, or a path/FIFO (pipe to `aplay -f cd`)")
-    p.add_argument("--pallas", action="store_true",
-                   help="use the fused Pallas VMEM kernel for the TPU "
-                        "trial grid (TPU backend only; wins at large "
-                        "batch sizes)")
     return p
 
 
@@ -185,7 +184,7 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
         dec = device_driver.DeviceBatchDecoder(
             jobs, lines_per_field=None, hyst_limit=hyst,
             shift_limit=shift, frames_per_round=args.batch,
-            mask_mode=mask_mode, use_pallas=args.pallas or None,
+            mask_mode=mask_mode,
             ref_sweep=args.quality == "insane",
             ref_sweep_fallback=args.quality == "normal",
             normal_sweep_prescan=args.quality in ("normal", "insane"),
@@ -282,17 +281,10 @@ def _make_live(spec, rate):
         return None
 
 
-def _enable_compile_cache():
-    import os
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/sdvpcm_jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _enable_compile_cache()
+    from .utils import jaxcache
+    jaxcache.enable()
     from .pipeline import ingest, v2d, audio as ap, wav
     from .pipeline import stitcher_stc007 as st
 
@@ -375,13 +367,11 @@ def main(argv=None):
                                in ("normal", "insane"),
                                forced_coords=fcoords,
                                per_line_agc=args.per_line_agc,
-                               use_pallas=args.pallas,
                                m2=args.format == "m2")
         backend = args.backend
         from .ops import stitch_native as _sn
         if backend == "auto":
-            backend = ("native" if _sn.available() and not args.pallas
-                       else "tpu")
+            backend = "native" if _sn.available() else "tpu"
         elif backend == "native" and not _sn.available():
             print("warning: native core unavailable (no compiler?); "
                   "falling back to the device backend", file=sys.stderr)

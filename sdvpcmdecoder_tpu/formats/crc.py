@@ -1,4 +1,4 @@
-"""CRC-16/CCITT-FALSE as GF(2)-linear algebra (TPU-native formulation).
+"""CRC-16/CCITT-FALSE as GF(2)-linear algebra (batched-matmul formulation).
 
 The reference decoder (pcmline.cpp:461-487 `PCMLine::getCalcCRC16`) runs a
 bit-serial CRC-16 shift register: poly 0x1021, init 0xFFFF, data fed MSB-first.
@@ -10,9 +10,9 @@ length the final CRC is an affine function of the message bits:
 where CONST = crc of the all-zero message (carries the 0xFFFF init through)
 and MASK[i] = crc contribution of message bit i alone with zero init.
 
-On TPU this turns per-line CRC checking into ONE batched matmul:
+This turns per-line CRC checking into ONE batched matmul:
     crc_bits[N, 16] = (bits[N, n] @ TABLE[n, 16]) mod 2
-which runs on the MXU for thousands of lines at once — replacing the
+which runs for thousands of lines at once — replacing the
 reference's per-line 112..128-step serial loop.  Moreover the *syndrome*
 (calculated CRC xor read CRC) of a whole 128-bit line payload is itself linear
 in all 128 bits, so "is this line valid" is a single matmul + compare.
@@ -119,7 +119,7 @@ def crc16_batch(bits: jnp.ndarray, n_bits: int, init: int = CRC_INIT,
                 ) -> jnp.ndarray:
     """Batched CRC over bit matrices [..., n_bits] -> int32 CRC values.
 
-    One MXU matmul: (bits @ TABLE) mod 2, then pack + xor const.
+    One integer matmul: (bits @ TABLE) mod 2, then pack + xor const.
     """
     table, const = crc16_linear_table(n_bits, init)
     t = jnp.asarray(table, dtype=jnp.int32)

@@ -5,7 +5,7 @@ The reference keeps 18 precomputed 14x14 bit-matrices as uint16 row masks
 k=1..5, applied by `multMatrix` (row-mask AND + parity, :2052-2088).
 
 Here a matrix is a numpy bool array M[out_bit, in_bit]; applying it to a batch
-of 14-bit words is one int matmul mod 2 — MXU-friendly and batched over every
+of 14-bit words is one int matmul mod 2, batched over every
 data block at once instead of per-block serial loops.
 """
 from __future__ import annotations
@@ -112,7 +112,7 @@ def bits_to_word(bits, xp=jnp):
 def apply_gf2(matrix, words, xp=jnp):
     """Apply one 14x14 GF(2) matrix to a batch of 14-bit words.
 
-    out_bits = bits @ matrix.T mod 2 -> one batched matmul on the MXU.
+    out_bits = bits @ matrix.T mod 2 -> one batched integer matmul.
     """
     bits = word_to_bits(words, xp=xp)
     if xp is jnp:

@@ -1,6 +1,6 @@
 // Native video ingest: mmap'd Y4M / raw-gray reader with a prefetch ring.
 //
-// TPU-native equivalent of the reference's FFmpeg ingest thread
+// Batch-reader equivalent of the reference's FFmpeg ingest thread
 // (ffmpegwrapper.{cpp,h} + vin_ffmpeg.{cpp,h}): a background thread
 // stages upcoming frames' luma planes into a bounded ring buffer
 // (FRAMES_READ_AHEAD_MAX=3 analog, config.h:76-77) so the Python side

@@ -4932,9 +4932,9 @@ void stc007_burst_stats(const uint8_t* flags, int64_t B, int32_t unch_lim,
 //
 // The device trial grid evaluates everything at once and argmin-selects;
 // this serial twin early-exits like the reference, so a clean line costs
-// ONE 128-bit read — which is why it exists: on hosts whose TPU link is a
-// narrow tunnel, shipping raw video to the chip costs more than decoding
-// clean lines in place (the batch driver picks the backend per policy).
+// ONE 128-bit read: the host engine decodes clean lines in place, with
+// no pixels sent to a device (the batch driver picks the backend per
+// policy).
 
 namespace {
 

@@ -12,7 +12,7 @@ AGC pumping) doesn't skew the levels.
 Host formulation: per-line histograms are one flattened bincount over
 (line_id * 256 + pixel) ids — a single C pass, no Python loop; the
 256-step peak scans vectorize across lines.  `line_histograms_device`
-is the jax twin (one-hot contraction on the MXU) for on-device use.
+is the jax twin (one-hot contraction) for on-device use.
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def line_histograms_device(pixels, mask):
 
     pixels [N, W] uint8/int, mask [N, W] bool -> hist [N, 256] int32
     (hist = sum_w mask * onehot(pixels) — an [N,W] x [W->256] one-hot
-    contraction the MXU handles as a bf16 matmul)."""
+    contraction summed in f32 from bf16 0/1 terms, so exact)."""
     import jax.numpy as jnp
     levels = jnp.arange(256, dtype=jnp.int32)
     onehot = (pixels[..., None].astype(jnp.int32) == levels) \

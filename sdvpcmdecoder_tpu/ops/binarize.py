@@ -196,10 +196,10 @@ def stc007_read_pcm_grid(pixel_lines, coords, ref_level, black, white,
 def _selection_matrix(px_coords, width):
     """One-hot bit-sampling matrix [..., n_bits, W] (bfloat16).
 
-    Turns the per-bit pixel gather into an MXU matmul: on TPU a 128-wide
-    gather along the minor axis is ~10x slower than the equivalent one-hot
-    contraction (profiled on v5e), and the product is exact since the
-    matrix is one-hot and accumulation is fp32.
+    Turns the per-bit pixel gather into a one-hot bf16 contraction.  The
+    product is exact: uint8 pixels are exact in bf16, the matrix is
+    one-hot and accumulation is fp32.  Whether a plain gather is faster
+    on a GPU has not been measured.
     """
     iota = jnp.arange(width, dtype=jnp.int32)
     return (px_coords[..., None] == iota).astype(jnp.bfloat16)
@@ -301,7 +301,7 @@ def stc007_frame_decode(pixels, coords, ref_level, black, white,
 def stc007_ref_sweep_decode(pixels, coords, black, white, ref_levels,
                             hyst_limit=HYST_DEPTH_MAX,
                             shift_limit=SHIFT_STAGES_MAX):
-    """Full reference-level sweep, TPU-native (sweepRefLevel
+    """Full reference-level sweep as one device dispatch (sweepRefLevel
     binarizer.cpp:3551 / calcRefLevelBySweep :3821).
 
     The reference walks every brightness in [black+1, white-1] per line,
@@ -487,7 +487,7 @@ def generic_frame_decode(pixels, coords, ref_level, black, white, fmt,
                          hyst_limit=0, shift_limit=2, part_start=0):
     """Format-parameterized frame-grouped trial-grid decode.
 
-    Same MXU machinery as stc007_frame_decode for PCM-1 (94-bit lines)
+    Same one-hot matmul machinery as stc007_frame_decode for PCM-1 (94-bit lines)
     and PCM-16x0 (64-bit sublines; call 3x with part_start in
     {0, 64, 129}). Returns (bits [F, L, n_bits] int32, valid [F, L],
     hyst, shift).

@@ -168,8 +168,7 @@ def assemble_blocks_contiguous(line_words, line_crc_ok, n_blocks,
     """assemble_blocks for consecutive shifts 0..n_blocks-1.
 
     Tap w of block b reads line b + 16w, so each tap column is ONE
-    contiguous slice — no gather (TPU gathers are ~10x slower than
-    slices)."""
+    contiguous slice — no gather."""
     w_cols = [line_words[w * stc007.INTERLEAVE_OFS:
                          w * stc007.INTERLEAVE_OFS + n_blocks, w]
               for w in range(N_WORDS)]
@@ -261,7 +260,7 @@ def correct_blocks(words, crc_ok, resolution, en_p=True, en_q=True,
         # e1 = A[k] @ sq ^ B[k] @ sp for the per-block pair k. Evaluated
         # as two FIXED matmuls against the stacked banks [14, 49*14]
         # followed by a one-hot pair selection — no per-block matrix
-        # gathers (slow on TPU).
+        # gathers.
         Astack, Bstack = _q_solve_banks_stacked()
         sq_bits = gf2.word_to_bits(sq, xp=xp).astype(
             jnp.int32 if xp is jnp else np.int64)

@@ -13,13 +13,14 @@ truth for the Q-code matrices, stc007deinterleaver.cpp:4-75).
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
 from ..formats import gf2
+from ..utils import native_build
 
 _LIB = None
 _TRIED = False
@@ -40,6 +41,9 @@ def _matrix_to_rows(m: np.ndarray) -> list[int]:
             for r in range(gf2.BITS)]
 
 
+_SRC = Path(__file__).resolve().parent.parent / "native" / "stitchcore.cpp"
+
+
 def _load():
     global _LIB, _TRIED
     if _TRIED:
@@ -47,40 +51,21 @@ def _load():
     _TRIED = True
     if os.environ.get("SDV_NO_NATIVE"):
         return None
-    src = Path(__file__).resolve().parent.parent / "native" / "stitchcore.cpp"
-    lib = src.with_name("libsdvstitch.so")
     try:
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
-            # Build to a per-pid temp name + atomic rename: concurrent
-            # processes must not clobber each other's .so mid-load.
-            tmp = lib.with_name(f".libsdvstitch.{os.getpid()}.so")
-            try:
-                # The core is integer-only, so -march=native is
-                # bit-safe; the .so is always built on the host that
-                # runs it.  Fallback chain drops -march, then -fopenmp
-                # (the pragmas are no-ops without it).
-                for flags in (["-O3", "-march=native", "-fopenmp"],
-                              ["-O3", "-fopenmp"],
-                              ["-O3"]):
-                    try:
-                        subprocess.run(
-                            ["g++", *flags, "-shared", "-fPIC",
-                             "-o", str(tmp), str(src)],
-                            check=True, capture_output=True)
-                        break
-                    except Exception:
-                        if flags == ["-O3"]:
-                            raise
-                os.replace(tmp, lib)
-            except Exception:
-                # No compiler (or a failed build): fall back to a shipped
-                # .so if one exists, even when older than the source.
-                if not lib.exists():
-                    raise
-                import logging
-                logging.getLogger(__name__).warning(
-                    "stitchcore rebuild failed; loading existing %s "
-                    "(may be stale vs stitchcore.cpp)", lib)
+        # The core is integer-only, so -march=native is bit-safe; the
+        # .so is always built on the host that runs it.  Fallback chain
+        # drops -march, then -fopenmp (the pragmas are no-ops without
+        # it).
+        lib = native_build.build(
+            _SRC, "libsdvstitch.so",
+            (["-O3", "-march=native", "-fopenmp"], ["-O3", "-fopenmp"],
+             ["-O3"]))
+    except native_build.BuildError as e:
+        logging.getLogger(__name__).warning(
+            "native stitch core unavailable; falling back to the ~100x "
+            "slower numpy reference paths: %s", e)
+        return None
+    try:
         L = ctypes.CDLL(str(lib))
         L.stc007_set_q_tables.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         L.stc007_correct_blocks.restype = ctypes.c_int
@@ -339,7 +324,6 @@ def _load():
         L._tables = (tpow_rows, inv_rows)
         _LIB = L
     except Exception:
-        import logging
         logging.getLogger(__name__).warning(
             "native stitch core unavailable; falling back to the ~100x "
             "slower numpy reference paths", exc_info=True)

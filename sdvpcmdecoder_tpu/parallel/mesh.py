@@ -1,7 +1,7 @@
 """Multi-chip scale-out: captures x line-chunks over a 2D device mesh.
 
 The reference's only parallelism is a 6-thread pipeline (SURVEY.md section
-2); the TPU design shards the *batch* instead:
+2); this design shards the *batch* instead:
 
   * "data" axis: independent captures / tapes (replaces running the app
     N times);
@@ -9,7 +9,8 @@ The reference's only parallelism is a 6-thread pipeline (SURVEY.md section
     so the diagonal interleave crosses chunk boundaries intact — the
     context-parallel halo-exchange analog (SURVEY.md section 5);
   * collectives: psum for stats, all_gather along "seq" for ordered WAV
-    assembly; all riding ICI.
+    assembly.  The mesh follows the algorithm alone: every card reaches
+    every other at the same rate, so no device-topology layout applies.
 """
 from __future__ import annotations
 

@@ -103,7 +103,7 @@ class ShardedBatchDecoder:
 
     def _reduce_stats(self, per_shard, n):
         """psum the per-shard counters over a 1D mesh — the cross-chip
-        stats reduction riding ICI (SURVEY.md §2 collectives)."""
+        stats reduction (SURVEY.md §2 collectives)."""
         mesh = Mesh(np.array(self.devices[:n]), ("data",))
 
         def local(x):

@@ -9,15 +9,14 @@ idles while hosts stitch); each capture owns its stitcher + audio chain +
 WAV writer, run on a thread pool since the host stitcher is the per-core
 bottleneck.
 
-Backends (transport-aware): "tpu" ships pixel batches to the chip for
-the all-trials grid decode; "native" decodes in place on the host with
-the bit-identical early-exit C++ grid, touching pixels straight off the
-capture mmap (zero copies, zero link traffic).  "auto" picks native when
-the C++ core is available — on hosts whose accelerator sits behind a
-narrow tunnel, moving raw video costs more than decoding clean lines
-locally, while level sweeps / noisy captures still belong on the TPU
-(V2DDriver.ref_sweep uses the device either way).  Per-stage wall time
-is accumulated in `stage_t` and surfaced by bench.py.
+Backends: "tpu" (the streaming accelerator engine) ships pixel batches
+to the device for the all-trials grid decode; "native" decodes in place
+on the host with the bit-identical early-exit C++ grid, touching pixels
+straight off the capture mmap (zero copies, no device traffic).  "auto"
+picks native when the C++ core is available and the device otherwise;
+the INSANE level sweep (V2DDriver.ref_sweep) uses the device either
+way.  Per-stage wall time is accumulated in `stage_t` and surfaced by
+bench.py.
 """
 from __future__ import annotations
 
@@ -78,7 +77,7 @@ class BatchDecoder:
     signature (pipeline/probe.py, BASELINE config 5 "auto format
     search") and requires consensus, since one run drives one decode
     family.  PCM-1/16x0 jobs run on the host backend (the
-    PCMFrameDriver handles its own TPU/native split internally)."""
+    PCMFrameDriver handles its own device/native split internally)."""
 
     def __init__(self, jobs, lines_per_field=294, hyst_limit=2,
                  shift_limit=1, mask_mode=ap.DROP_INTER_LIN_WORD,

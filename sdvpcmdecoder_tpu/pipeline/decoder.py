@@ -56,36 +56,24 @@ def decode_stream(pixels, coords, ref_level, black, white,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("hyst_limit", "shift_limit", "res_mode", "m2",
-                     "use_pallas"))
+    static_argnames=("hyst_limit", "shift_limit", "res_mode", "m2"))
 def decode_frames(pixels, coords, ref_level, black, white,
                   hyst_limit=4, shift_limit=2,
-                  res_mode=di.RES_MODE_14BIT, m2=False, use_pallas=True):
+                  res_mode=di.RES_MODE_14BIT, m2=False):
     """Frame-grouped production path: pixels [F, Lf, W], coords [F, 2],
     ref/black/white [F]. Lines are temporally contiguous across frames;
     the deinterleaver runs over the flattened stream.
-
-    use_pallas=True routes the binarize through the fused VMEM kernel
-    (ops.pallas_binarize, 1.3x the XLA trial-grid path on v5e at NORMAL
-    and INSANE limits, bit-identical — tools/validate_pallas_tpu.py);
-    both avoid per-line gathers via the MXU bit-sampling matmul.
     """
-    from ..ops import pallas_binarize as pb
     F, Lf, W = pixels.shape
-    if use_pallas:
-        batch = pb.stc007_fused_decode_frames(
-            pixels, coords, ref_level, black, white,
-            hyst_limit=hyst_limit, shift_limit=shift_limit)
-    else:
-        batch = bz.stc007_frame_decode(pixels, coords, ref_level, black,
-                                       white, hyst_limit=hyst_limit,
-                                       shift_limit=shift_limit)
+    batch = bz.stc007_frame_decode(pixels, coords, ref_level, black, white,
+                                   hyst_limit=hyst_limit,
+                                   shift_limit=shift_limit)
     L = F * Lf
     words = batch.words.reshape(L, 8)
     valid = batch.valid.reshape(L)
     crc_ok = jnp.tile(valid[:, None], (1, 8))
     n_blocks = L - stc007.MIN_DEINT_DATA
-    # Consecutive shifts -> contiguous-slice assembly (no TPU gathers).
+    # Consecutive shifts -> contiguous-slice assembly (no gathers).
     w14, c14 = di.assemble_blocks_contiguous(words, crc_ok, n_blocks,
                                              di.RES_14BIT)
     if res_mode == di.RES_MODE_14BIT:

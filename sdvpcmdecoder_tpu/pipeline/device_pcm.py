@@ -125,6 +125,7 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
                 np.asarray(p["out"]), F, Ls, self.dec_fmt)
 
         def px_fetch(f, px=p["px"]):
+            j.stats.frames_line_fallback += 1
             return np.asarray(
                 jax.lax.slice_in_dim(px, f, f + 1))[0]
 

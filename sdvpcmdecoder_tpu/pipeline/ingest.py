@@ -1,7 +1,7 @@
 """Video ingest: Y4M / raw-gray readers + field splitting (VIP layer).
 
 Replaces the reference's FFmpeg wrapper + VideoInFFMPEG
-(ffmpegwrapper.{cpp,h}, vin_ffmpeg.{cpp,h}) with a TPU-batch design:
+(ffmpegwrapper.{cpp,h}, vin_ffmpeg.{cpp,h}) with a device-batch design:
 frames arrive as whole uint8 luma batches rather than per-line queue
 pushes. The native C++ loader (native/loader.cpp, built on first use)
 mmaps the capture and prefetches upcoming frames on a background thread —
@@ -17,6 +17,7 @@ ffmpegwrapper.h:128-132) duplicates each pixel horizontally.
 from __future__ import annotations
 
 import ctypes
+import logging
 import mmap
 import os
 import subprocess
@@ -30,20 +31,25 @@ _NATIVE = None
 _NATIVE_TRIED = False
 
 
+_LOADER_SRC = Path(__file__).resolve().parent.parent / "native" / "loader.cpp"
+
+
 def _native_lib():
     """Build (once) and load the native loader; None when unavailable."""
     global _NATIVE, _NATIVE_TRIED
     if _NATIVE_TRIED:
         return _NATIVE
     _NATIVE_TRIED = True
-    src = Path(__file__).resolve().parent.parent / "native" / "loader.cpp"
-    lib = src.with_name("libsdvloader.so")
+    from ..utils import native_build
     try:
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", str(lib),
-                 str(src), "-lpthread"],
-                check=True, capture_output=True)
+        lib = native_build.build(_LOADER_SRC, "libsdvloader.so", (["-O3"],),
+                                 libs=("-lpthread",))
+    except native_build.BuildError as e:
+        logging.getLogger(__name__).warning(
+            "native capture loader unavailable; using the mmap reader: "
+            "%s", e)
+        return None
+    try:
         L = ctypes.CDLL(str(lib))
         L.sdv_open.restype = ctypes.c_void_p
         L.sdv_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,

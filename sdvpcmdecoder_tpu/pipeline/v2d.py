@@ -148,7 +148,7 @@ class V2DDriver:
                  preset: agc.BinPreset | None = None,
                  ref_sweep=False, sweep_step=4, min_valid_crcs=5,
                  forced_coords=None, ref_sweep_fallback=False,
-                 per_line_agc=False, dup_detect=True, use_pallas=False,
+                 per_line_agc=False, dup_detect=True,
                  m2=False, normal_sweep_prescan=False, coord_skip=True):
         self.hyst_limit = hyst_limit
         self.shift_limit = shift_limit
@@ -160,11 +160,6 @@ class V2DDriver:
         self.per_line_agc = per_line_agc
         self.dup_detect = dup_detect  # check_line_copy (doBinarize :1210)
         self.m2 = m2  # M2 sample companding (almost-silent dup gate)
-        # Fused VMEM kernel for the frame trial grid (bit-identical to
-        # the XLA path). Wins at large frame batches (the device-only
-        # bench runs it at F=128); at the driver's small per-round
-        # batches the XLA path dispatches faster, so default off.
-        self.use_pallas = use_pallas
         self.ref_sweep = ref_sweep
         # NORMAL-mode analog of the reference's always-on STC-007 sweep:
         # only lines still invalid after the marker fallback re-run the
@@ -461,25 +456,15 @@ class V2DDriver:
         """
         coords, blacks, whites = prep["coords"], prep["blacks"], \
             prep["whites"]
-        import jax
-        if self.use_pallas and np.asarray(prep["refs"]).ndim == 1 \
-                and jax.devices()[0].platform == "tpu":
-            # Mosaic kernel on real TPUs only: the CPU fallback would be
-            # the interpreter, far slower than the XLA path.
-            from ..ops import pallas_binarize as pb
-            decode = pb.stc007_fused_decode_frames
-        else:
-            decode = bz.stc007_frame_decode
-        batch = decode(
+        batch = bz.stc007_frame_decode(
             jnp.asarray(pixels), jnp.asarray(coords, jnp.int32),
             jnp.asarray(np.maximum(prep["refs"], 1), jnp.int32),
             jnp.asarray(np.clip(blacks, 0, 254), jnp.int32),
             jnp.asarray(np.clip(whites, 1, 255), jnp.int32),
             hyst_limit=self.hyst_limit, shift_limit=self.shift_limit)
-        # Words are 14-bit, CRC 16-bit: cast AND flatten the minor axis on
-        # DEVICE before transfer — an [F, L, 8] device array pads the
-        # 8-wide minor dim to the 128-lane tile on copy-out, a ~16x
-        # transfer blowup over the [F, L*8] view.
+        # Words are 14-bit, CRC 16-bit: narrow them on the DEVICE before
+        # the transfer (half the bytes of the int32 words), flattened to
+        # one [F, L*8] view.
         F = batch.words.shape[0]
         return batch._replace(
             words=batch.words.astype(jnp.int16).reshape(F, -1),
@@ -488,8 +473,8 @@ class V2DDriver:
     def materialize_frames(self, pixels, prep, batch):
         """Blocking device->host transfer of a dispatch + INSANE sweep."""
         import jax
-        # One batched device_get over flat views: N small D2H transfers
-        # over the chip link cost far more than one large one.
+        # One batched device_get over flat views instead of N small
+        # device-to-host transfers.
         words, crc_read, valid = jax.device_get(
             [batch.words, batch.crc_read, batch.valid])
         if words.ndim == 2:  # flattened [F, L*8] transfer layout
@@ -519,10 +504,9 @@ class V2DDriver:
         `pixels` may be ANY strided uint8 view [F, L, W] — with `perm`
         (field-sequential index -> pixel row) it is the raw frame-row
         mmap view and no full-frame copy ever happens; results come back
-        in field-sequential line order.  Exists because shipping raw
-        video over a narrow host<->TPU link can cost more than decoding
-        clean lines in place; the TPU path stays the engine for level
-        sweeps and noisy captures (see BatchDecoder backend policy).
+        in field-sequential line order, and no pixels move to the
+        device; the level sweeps stay on the device (see BatchDecoder
+        backend policy).
         """
         F = pixels.shape[0]
         prep = self.prepare_frames(pixels, perm=perm)
@@ -560,8 +544,8 @@ class V2DDriver:
             self.hyst_limit, self.shift_limit, row_map=perm)
         forced = np.zeros(valid.shape, bool)
         if self.ref_sweep:
-            # INSANE sweep stays on the TPU (the full level sweep is the
-            # search the device is for); gather a field-ordered copy.
+            # INSANE sweep stays on the device (the full level sweep is
+            # the search the device is for); gather a field-ordered copy.
             px_seq = np.ascontiguousarray(
                 pixels[:, perm, :]) if perm is not None else pixels
             blacks, whites = prep["blacks"], prep["whites"]

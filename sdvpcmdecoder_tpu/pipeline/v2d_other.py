@@ -11,7 +11,7 @@ mirrors V2DDriver:
     COORD_CHECK_LINES spread sample lines, damped by a frame-level
     median history (prescanCoordinates / medianCoordinates analog);
   * decode: the whole frame batch through ONE native early-exit trial
-    grid call (host backend) or one XLA dispatch (TPU backend);
+    grid call (host backend) or one XLA dispatch (device backend);
   * fallback: per-line native coordinate refinement for lines the
     shared frame coordinates cannot decode (refine_failed_lines).
 """

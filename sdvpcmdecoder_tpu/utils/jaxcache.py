@@ -1,25 +1,26 @@
-"""Persistent XLA compilation cache for production entry points.
+"""Persistent XLA compilation cache for the entry points.
 
-The STC-007 trial-grid kernel takes minutes to compile at NORMAL limits;
-the CLI / bench / batch driver are fresh processes, so without a
-persistent cache every run pays full compile.  Tests set their own cache
-(tests/conftest.py).  Opt out with SDV_NO_JAX_CACHE=1.
+The trial-grid programs take long to compile, and the CLI, bench.py,
+chip_smoke.py and the test processes each start cold.  The cache lives
+where JAX_COMPILATION_CACHE_DIR says when it is set; otherwise at one
+fixed directory inside the checkout (`.jax_cache`, git-ignored).  The
+path is part of what lets a later process find the entries, so it is
+never a temporary or per-process name.
 """
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
-_DONE = False
+DEFAULT_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable():
-    global _DONE
-    if _DONE or os.environ.get("SDV_NO_JAX_CACHE"):
-        return
-    _DONE = True
+def enable(min_compile_secs: float = 1.0) -> str:
+    """Point JAX's persistent compilation cache at its directory and
+    return that directory.  Idempotent; call before the first compile."""
     import jax
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("SDV_JAX_CACHE_DIR",
-                       os.path.expanduser("~/.cache/sdvpcm_jax_cache")))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(DEFAULT_DIR)
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                      min_compile_secs)
+    return path

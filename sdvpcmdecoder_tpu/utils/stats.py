@@ -29,6 +29,9 @@ class DecodeStats:
     lines_dup: int = 0           # stat_dup_err_cnt: head-switch copies
     frames_bad_stitch: int = 0   # stat_bad_stitch_cnt: padding not found
     frames_dropped: int = 0      # stat_drop_frame_cnt: capture drops
+    # Chip-resident drivers: frames whose failed lines were re-read on
+    # the host (pixels fetched back for the marker fallback/refinement).
+    frames_line_fallback: int = 0
     # Reassembly loop time telemetry (stat_min/max_di_time,
     # mainwindow.h:448-450; loopTime signals).
     di_time_min_us: int = 0

@@ -118,7 +118,7 @@ def test_encoder_blocks_decode_through_deinterleaver():
 
 
 def test_frame_decode_matches_per_line_grid():
-    """The frame-grouped MXU path must pick identical trials/words as the
+    """The frame-grouped one-hot matmul path must pick identical trials/words as the
     per-line gather path when coords/levels are uniform."""
     left, right = _random_samples(150, seed=8)
     pixels, coords, line_words, crcs = enc.encode_stream(
@@ -149,27 +149,3 @@ def test_frame_decode_matches_per_line_grid():
     np.testing.assert_array_equal(np.asarray(framed.shift).reshape(-1),
                                   np.asarray(per_line.shift))
 
-
-def test_pallas_fused_matches_xla_interpret():
-    """The fused Pallas kernel (interpreter on CPU) must match the XLA
-    trial-grid path bit-for-bit."""
-    from sdvpcmdecoder_tpu.ops import pallas_binarize as pb
-    left, right = _random_samples(60, seed=11)
-    pixels, coords, lw, crcs = enc.encode_stream(
-        left, right, width=1152, ppb=8.0, noise_sigma=30.0,
-        rng=np.random.default_rng(12))
-    F, Lf = 2, pixels.shape[0] // 2
-    px = jnp.asarray(pixels[:F * Lf].reshape(F, Lf, -1))
-    cd = jnp.asarray(coords[:F * Lf:Lf], jnp.int32)
-    ref = jnp.full((F,), 110, jnp.int32)
-    blk = jnp.full((F,), 5, jnp.int32)
-    wht = jnp.full((F,), 250, jnp.int32)
-    ox = bz.stc007_frame_decode(px, cd, ref, blk, wht, 2, 1)
-    of = pb.stc007_fused_decode_frames(px, cd, ref, blk, wht, 2, 1,
-                                       tile_lines=32)
-    np.testing.assert_array_equal(np.asarray(of.valid), np.asarray(ox.valid))
-    both = np.asarray(of.valid)
-    np.testing.assert_array_equal(np.asarray(of.words)[both],
-                                  np.asarray(ox.words)[both])
-    np.testing.assert_array_equal(np.asarray(of.hyst)[both],
-                                  np.asarray(ox.hyst)[both])
